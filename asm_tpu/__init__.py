@@ -1,4 +1,4 @@
-"""asm_tpu — a TPU-native approximate string matching framework.
+"""asm_tpu — batched approximate string matching of DNA reads in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 GZHoffie/approximate-string-matching (reference mounted read-only at
@@ -20,8 +20,8 @@ benchmark harness (benchmark_utils.h), and a read-mapper shell (GASMA/mapper/).
 
 Unlike the reference — which aligns one pair at a time inside a single
 SSE/AVX2 register — every kernel here is a pure batched function over
-thousands of read pairs (batch across VPU sublanes, sequence positions across
-lanes), jit/shard_map-able over a TPU device mesh with psum-reduced statistics.
+thousands of read pairs, jit/shard_map-able over a device mesh with
+psum-reduced statistics.
 """
 
 __version__ = "0.1.0"
@@ -43,14 +43,6 @@ from asm_tpu.kernels.nw import nw_align, nw_penalty
 from asm_tpu.kernels.greedy import greedy_align
 from asm_tpu.kernels.leap import leap_align
 from asm_tpu.kernels.shd import shd_filter
-from asm_tpu.kernels.greedy_pallas import greedy_align_pallas
-from asm_tpu.kernels.leap_pallas import leap_align_pallas, leap_cigar_auto
-from asm_tpu.kernels.nw_pallas import nw_align_pallas, nw_penalty_pallas
-from asm_tpu.kernels.nw_band import (
-    nw_penalty_auto,
-    nw_penalty_partitioned,
-    required_band,
-)
 from asm_tpu.kernels.msa import profile_align, profiles_from_alignments
 
 __all__ = [
@@ -64,16 +56,8 @@ __all__ = [
     "pack_bitplanes",
     "nw_align",
     "nw_penalty",
-    "nw_align_pallas",
-    "nw_penalty_pallas",
-    "nw_penalty_auto",
-    "nw_penalty_partitioned",
-    "required_band",
     "greedy_align",
-    "greedy_align_pallas",
     "leap_align",
-    "leap_align_pallas",
-    "leap_cigar_auto",
     "shd_filter",
     "profile_align",
     "profiles_from_alignments",

@@ -1,6 +1,6 @@
 """Benchmark / evaluation harness (layer L4 of the reference).
 
-TPU-native re-design of GASMA/benchmark/: the reference's per-pair loop
+Batched re-design of GASMA/benchmark/: the reference's per-pair loop
 (benchmark_utils.h:373-385 — NW via parasail, LEAP, Greedy, one pair at a
 time) becomes chunked batched kernel launches with device-side accuracy
 counters; the report format mirrors benchmark::print

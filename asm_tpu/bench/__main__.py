@@ -21,15 +21,13 @@ from asm_tpu.data.generator import generate_dataset_arrays
 def _gen(pairs, length, err, mr, seed, max_len, length_range=None,
          exact=True):
     """C++ generator when available (~50x faster for big corpora)."""
-    if length_range is None:
-        try:
-            from asm_tpu.native import generate_dataset_native
-            return generate_dataset_native(
-                pairs, length, err, mr, seed=seed, max_len=max_len,
-                exact_error_rate=exact,
-            )
-        except Exception:
-            pass
+    from asm_tpu.native import generate_dataset_native, load_native
+
+    if length_range is None and load_native() is not None:
+        return generate_dataset_native(
+            pairs, length, err, mr, seed=seed, max_len=max_len,
+            exact_error_rate=exact,
+        )
     return generate_dataset_arrays(
         pairs, length, err, mr, seed=seed, max_len=max_len,
         length_range=length_range, exact_error_rate=exact,
@@ -38,22 +36,10 @@ from asm_tpu.data.io import read_pair_file
 from asm_tpu.encoding import encode_batch
 
 
-def main():
-    # persistent compile cache (remote TPU compiles cost 30-200 s; cached
-    # reruns start in seconds) — same gitignored dir bench.py uses
-    import os
+def main(argv=None):
+    from asm_tpu.runtime import describe, require_device, use_compile_cache
 
-    import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(
-            os.path.dirname(os.path.dirname(
-                os.path.dirname(os.path.abspath(__file__)))),
-            ".jax_cache",
-        ),
-    )
-
+    use_compile_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--pairs", type=int, default=1_000_000)
     p.add_argument("--err", type=float, action="append", default=None,
@@ -88,9 +74,8 @@ def main():
                help="cap coverage to the first N pairs (default: full corpus, like the reference)")
     p.add_argument("--no-coverage", action="store_true")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--impl", choices=("xla", "pallas"), default="xla",
-                   help="greedy/LEAP kernel implementation")
-    args = p.parse_args()
+    args = p.parse_args(argv)
+    print(describe(require_device()), flush=True)
 
     cfg = AlignConfig(
         x=args.x, o=args.o, e=args.e, k=args.k, max_len=args.max_len
@@ -134,7 +119,6 @@ def main():
             chunk=args.chunk,
             coverage_sample=0 if args.no_coverage else args.coverage_sample,
             want_coverage=not args.no_coverage,
-            impl=args.impl,
         )
         print(format_report(r))
 

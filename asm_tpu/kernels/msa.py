@@ -1,9 +1,9 @@
-"""Batched profile-profile alignment (MSA step) — MXU + wavefront DP.
+"""Batched profile-profile alignment (MSA step) — matrix product + wavefront DP.
 
-TPU-native re-design of the ProfileProfileAlignment prototype
+Batched re-design of the ProfileProfileAlignment prototype
 (pymatch/algorithms/MSA.py:19-103). The prototype computes one PSP profile
 dot product `p1[i] @ S @ p2[j]` per DP cell in Python; here the profile
-contraction is hoisted onto the MXU — `p2s = p2 @ S.T` once per batch, so
+contraction is hoisted into one matrix product — `p2s = p2 @ S.T` once per batch, so
 each wavefront step needs only an elementwise dot over the 5-channel axis
 — and the maximizing DP runs as the same anti-diagonal [B, L] wavefront as
 the NW kernel (scan over 2L diagonals, i in [1, L] stored, virtual top
@@ -58,8 +58,9 @@ def profile_align(p1, len1, p2, len2, match: float = 1.0,
     S = jnp.asarray(score_matrix(match, mismatch), jnp.float32)
     gap = jnp.asarray(GAP_VEC, jnp.float32)
 
-    # MXU: contract profiles with the score matrix once. HIGHEST precision:
-    # the default bf16 MXU passes cost ~1e-2 on 1/3-valued profiles, and
+    # contract profiles with the score matrix once. HIGHEST precision:
+    # reduced-precision passes (bf16, TF32) cost ~1e-2 on 1/3-valued
+    # profiles, and
     # these contractions are a negligible fraction of the DP work.
     hp = jax.lax.Precision.HIGHEST
     p2s = jnp.einsum("bjc,dc->bjd", p2, S, precision=hp)  # p2s[j] = S@p2[j]

@@ -1,25 +1,22 @@
 """Batched exact Needleman-Wunsch/Gotoh affine-gap global alignment.
 
-The accuracy oracle of the framework — the TPU-native replacement for the
+The accuracy oracle of the framework — the batched replacement for the
 reference's parasail dependency (GASMA/benchmark/benchmark_utils.h:104-150).
 Penalty convention (pinned by tests against asm_tpu.reference_impl.nw_ref):
 mismatch costs x, a gap of length L costs o + (L-1)*e, penalty = minimized
 total (== -parasail score with matrix ("ACGT", 0, -x), benchmark_utils.h:288).
 
-TPU design: instead of parasail's striped-SIMD single-pair DP, the batch of
+Design: instead of parasail's striped-SIMD single-pair DP, the batch of
 pairs IS the parallel axis. The DP runs as an anti-diagonal wavefront
 (jax.lax.scan over 2L diagonals): every cell of one diagonal depends only on
-the two previous diagonals, so a whole diagonal is one fused VPU pass —
-vectorized over [B, L] with B pairs across sublanes and the diagonal across
-lanes. Only cells i in [1, L] are stored: the i == 0 top-border column has
-the closed form o + (d-1)*e and is folded in as the shift fill, keeping
-every state array exactly L = 128 lanes (a stored L+1 column would make the
-TPU pad every array to 256 lanes — 2x memory and bandwidth for one column).
+the two previous diagonals, so a whole diagonal is one fused elementwise
+pass over [B, L]. Only cells i in [1, L] are stored: the i == 0 top-border
+column has the closed form o + (d-1)*e and is folded in as the shift fill,
+so every state array is exactly [B, L].
 
 No data-dependent shapes: all pairs run the full 2L-step wavefront and each
 pair's result is snapshotted at its own final diagonal d == m+n via a
-one-hot masked reduce (gather-free: TPU lowers per-row gathers orders of
-magnitude slower than streaming reductions).
+one-hot masked reduce (gather-free).
 
 Traceback (for CIGAR / the coverage metric) stores one packed pointer byte
 per cell per diagonal during the forward scan, then replays the diagonals
@@ -34,6 +31,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from asm_tpu.utils.profiling import scoped
 
 # plain int (not jnp scalar): module import must not initialize the backend
 INF = 1 << 29
@@ -154,6 +153,7 @@ def _wavefront(read_codes, ref_codes, read_len, ref_len, x, o, e, want_trace):
 
 
 @functools.partial(jax.jit, static_argnames=("x", "o", "e"))
+@scoped("nw")
 def nw_penalty(read_codes, read_len, ref_codes, ref_len, x=1, o=1, e=1):
     """Exact global alignment penalty, no traceback. int32[B]."""
     pen, _ = _wavefront(read_codes, ref_codes, read_len, ref_len, x, o, e, False)
@@ -163,6 +163,7 @@ def nw_penalty(read_codes, read_len, ref_codes, ref_len, x=1, o=1, e=1):
 @functools.partial(
     jax.jit, static_argnames=("x", "o", "e", "match_mask_threshold")
 )
+@scoped("nw")
 def nw_align(read_codes, read_len, ref_codes, ref_len, x=1, o=1, e=1,
              match_mask_threshold: int | None = None):
     """Exact global alignment with traceback.

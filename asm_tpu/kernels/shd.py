@@ -1,6 +1,6 @@
 """Batched Shifted-Hamming-Distance (SHD) pre-filter.
 
-TPU-native equivalent of bit_vec_filter_sse/avx
+Batched equivalent of bit_vec_filter_sse/avx
 (GASMA/benchmark/LEAP_SIMD/SHD.cpp:157-385): a cheap gate that rejects read
 pairs whose edit distance certainly exceeds max_error before running the
 full LEAP/NW kernels (used optionally by SIMD_ED::run_levenshtein/affine,

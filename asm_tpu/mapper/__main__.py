@@ -10,6 +10,7 @@ import argparse
 
 from asm_tpu.mapper.core import MapperConfig, map_reads
 from asm_tpu.native import FMIndex, read_fasta_native, read_fastq_native
+from asm_tpu.runtime import describe, require_device, use_compile_cache
 
 
 def main(argv=None):
@@ -24,6 +25,8 @@ def main(argv=None):
                    help="maximum allowed errors (default 3)")
     p.add_argument("--max-reads", type=int, default=1 << 20)
     args = p.parse_args(argv)
+    use_compile_cache()
+    print(describe(require_device()), flush=True)
 
     codes, _ = read_fasta_native(args.reference)
     idx = FMIndex.load(args.index)

@@ -1,8 +1,8 @@
 """ctypes bindings for the native runtime (native/libasm_native.so).
 
-The compute path of the framework is JAX/XLA on TPU; the runtime around it
+The compute path of the framework is JAX on the device; the runtime around it
 — corpus IO, 2-bit packing, the WFA-style generator, and the mapper's
-FM-index — is native C++ (native/src/*.cpp), the TPU-native equivalent of
+FM-index — is native C++ (native/src/*.cpp), the batched framework's equivalent of
 the reference's host-side C++ (bit_convert.cpp, benchmark_dataset.h,
 SeqAn3 indexer/mapper). Python falls back to the pure-NumPy
 implementations in asm_tpu.data when the library is unavailable.
@@ -117,25 +117,6 @@ def _configure(lib):
     lib.asm_apply_perm_rows.argtypes = [
         c.c_void_p, i64p, c.c_void_p, c.c_int64, c.c_int64, c.c_int32,
     ]
-    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
-    lib.asm_stage_swar_t.restype = None
-    lib.asm_stage_swar_t.argtypes = [
-        u32p, c.c_int64, c.c_int32, u32p, c.c_int32,
-    ]
-    lib.asm_stage_planes_t.restype = None
-    lib.asm_stage_planes_t.argtypes = [
-        u32p, c.c_void_p, c.c_int64, c.c_int32, u32p, c.c_int32,
-    ]
-    lib.asm_stage_planes_tiled_t.restype = None
-    lib.asm_stage_planes_tiled_t.argtypes = [
-        u32p, c.c_void_p, c.c_int64, c.c_int32, c.c_int32, u32p, c.c_int32,
-    ]
-    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    lib.asm_stage_lanes_t.restype = None
-    lib.asm_stage_lanes_t.argtypes = [
-        u32p, u32p, i32p, i32p, c.c_void_p, c.c_int64, c.c_int32,
-        c.c_int32, u32p, c.c_int32,
-    ]
     lib.asm_read_into.restype = c.c_int64
     lib.asm_read_into.argtypes = [
         c.c_char_p, c.c_int64, c.c_void_p, c.c_int64, c.c_int32,
@@ -143,6 +124,20 @@ def _configure(lib):
     lib.asm_write_from.restype = c.c_int64
     lib.asm_write_from.argtypes = [c.c_char_p, c.c_int64, c.c_void_p, c.c_int64]
     return lib
+
+
+def build_native() -> float:
+    """`make -C native`, serialized across processes by a file lock (test
+    workers may all find the library missing at once); returns seconds."""
+    import fcntl
+    import time
+
+    t0 = time.perf_counter()
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True)
+    return time.perf_counter() - t0
 
 
 def load_native(required: bool = False):
@@ -154,10 +149,7 @@ def load_native(required: bool = False):
         return None
     try:
         if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR], check=True,
-                capture_output=True,
-            )
+            build_native()
         _lib = _configure(ctypes.CDLL(_LIB_PATH))
         return _lib
     except (OSError, subprocess.CalledProcessError) as exc:
@@ -242,8 +234,9 @@ def read_fastq_native(path, max_reads, max_len=128, name_cap=64):
         raise IOError(f"cannot read FASTQ {path}")
     buf = ctypes.create_string_buffer(int(max_reads) * name_cap)
     n2 = lib.asm_read_fastq_names(path.encode(), max_reads, name_cap, buf)
+    raw = buf.raw  # one copy: `buf.raw` copies the whole buffer per access
     names = [
-        buf.raw[i * name_cap: (i + 1) * name_cap].split(b"\0", 1)[0].decode()
+        raw[i * name_cap: (i + 1) * name_cap].split(b"\0", 1)[0].decode()
         for i in range(int(min(n, n2)))
     ]
     return codes[:n], lens[:n], names

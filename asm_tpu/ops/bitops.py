@@ -8,9 +8,9 @@ x86 bit tricks:
   pop_count_between(f, t)  -> funnel shift + POPCNT  (GASMA/utils.h:263-270)
   flip_short_hurdles/matches -> shifted AND/OR masks (GASMA/utils.h:200-240)
 
-TPUs have no tzcnt/popcount over a private register per problem; instead we
-hold a whole BATCH of rows as int8 arrays [.., L] (one string position per
-VPU lane, problems across sublanes) and precompute per-row scan structures
+Instead of one private register per problem we hold a whole BATCH of rows
+as int8 arrays [.., L] (one string position per element, problems across
+the batch axis) and precompute per-row scan structures
 once, turning every per-step bit query into an O(1) gather:
 
   next_one_index / next_zero_index : [.., L+1] "first set/unset index >= p"

@@ -1,6 +1,6 @@
 """CIGAR handling: fixed-size device op buffers <-> host strings.
 
-Device kernels emit fixed-shape op arrays (no strings on TPU):
+Device kernels emit fixed-shape op arrays (no strings on the device):
   * greedy: (cigar_ops int8[B, C], cigar_runs int32[B, C], count int32[B])
     in emission order — op codes 3 'I', 4 'D', 5 'M'
     (cf. _update_CIGAR, GASMA/hurdle_matrix.h:238-251);

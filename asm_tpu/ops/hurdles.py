@@ -18,7 +18,7 @@ compares stale buffer bytes).
 
 Here the whole hurdle "matrix" for a BATCH is one int8 array [B, NL, L]
 computed with static per-lane shifts — XLA fuses the shift+compare+OR into a
-few VPU passes over the batch; it is never materialized on the host.
+few elementwise passes over the batch; it is never materialized on the host.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def build_greedy_lanes(
 ) -> jax.Array:
     """Hurdle rows for greedy lanes -k..k: int8[B, 2k+1, L].
 
-    Row index i corresponds to lane (i - k). TPU-native equivalent of
+    Row index i corresponds to lane (i - k). Batched equivalent of
     _construct_hurdles (GASMA/hurdle_matrix.h:441-455): per-lane shifted
     compare, batched. The reference XORs two bit-planes; comparing int8
     codes directly is the same boolean and lets XLA keep everything in one

@@ -1,6 +1,6 @@
 """Bit-packed lane rows: uint32 words + popcount/ctz queries.
 
-This is the TPU rendition of the reference's `int_128bit`/`int_256bit`
+This is the batched rendition of the reference's `int_128bit`/`int_256bit`
 registers (GASMA/utils.h:49-549): a lane row of L positions is W = L/32
 uint32 words, bit p of word w = position 32*w + p (LSB-first, exactly the
 reference's little-endian bit order). Every register query maps to a short
@@ -13,10 +13,9 @@ vector computation over the [.., W] word axis:
 
 Compared to the unpacked bool[..., L] rows this is 32x less data per query
 — the difference between the greedy/LEAP inner loops being HBM-bound on
-[B, NL, L] sweeps and being arithmetic on [B, NL, W] words. Hardware note:
-TPUs execute population_count/shift/and natively on the VPU; there is no
-tzcnt, hence the popcount-based ctz emulation (cf. the de Bruijn trick the
-Python prototype uses, pymatch/util.py:201-208).
+[B, NL, L] sweeps and being arithmetic on [B, NL, W] words. ctz is
+emulated with popcount (cf. the de Bruijn trick the Python prototype uses,
+pymatch/util.py:201-208).
 """
 
 from __future__ import annotations

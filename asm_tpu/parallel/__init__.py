@@ -3,13 +3,13 @@
 The reference is strictly single-threaded, single-process — its only
 parallelism is bit-level SWAR inside one SSE/AVX2 register
 (SURVEY.md §2.3; GASMA/benchmark/benchmark_utils.h:374-383 is a plain
-sequential loop). The TPU framework's scale-out story replaces that:
+sequential loop). The framework's scale-out story replaces that:
 
-  * on-chip: thousands of pairs batched across VPU sublanes (the kernels);
+  * on one device: thousands of pairs batched (the kernels);
   * multi-chip: a 1-D `jax.sharding.Mesh` over all devices, read-pair
     batches sharded on the leading axis via `shard_map`, penalty tables
-    replicated, accuracy/coverage/time counters reduced with `psum` over
-    ICI (the TPU-native equivalent of the reference's missing NCCL/MPI
+    replicated, accuracy/coverage/time counters reduced with `psum`
+    (XLA hands it to NCCL between GPUs; the reference has no such
     layer — no point-to-point traffic is needed, the workload is
     embarrassingly parallel with scalar reductions);
   * multi-host: `jax.distributed.initialize` + the same mesh spanning all

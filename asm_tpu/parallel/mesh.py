@@ -21,9 +21,8 @@ def make_mesh(n_devices: int | None = None, axis: str = BATCH_AXIS) -> Mesh:
     """A 1-D mesh over the first `n_devices` devices (default: all).
 
     Multi-host note: `jax.devices()` is the GLOBAL device list, so the same
-    call on every host of a pod slice yields one pod-wide mesh; sharding a
-    global array over it makes XLA ride ICI within a slice and DCN across
-    slices automatically.
+    call on every host yields one global mesh; sharding a global array over
+    it makes XLA's collectives span every host automatically.
     """
     devs = jax.devices()
     if n_devices is not None:
@@ -80,8 +79,8 @@ def initialize_distributed(
 ) -> None:
     """Multi-host bring-up: `jax.distributed.initialize` wrapper.
 
-    On TPU pods all arguments are auto-detected from the environment; on CPU
-    test rigs pass them explicitly. Safe to call when already initialized.
+    Pass the coordinator address, process count and id explicitly (nothing
+    on a plain GPU host or CPU rig detects them). Safe to call when already initialized.
     """
     try:
         jax.distributed.initialize(

@@ -1,13 +1,13 @@
 """Sharded end-to-end alignment pipelines.
 
 `make_sharded_pipeline(mesh, cfg)` compiles the framework's full evaluation
-step — the TPU-native equivalent of the reference's per-pair benchmark loop
+step — the batched equivalent of the reference's per-pair benchmark loop
 (GASMA/benchmark/benchmark_utils.h:231-259: run NW + LEAP + Greedy, compare
 penalties) — as ONE pjit'd program over a device mesh:
 
   per shard (local, no communication):
       NW oracle penalties, Greedy cost, LEAP penalty, SHD gate
-  cross-shard (ICI collectives):
+  cross-shard (collectives):
       psum-reduced counters (pairs, greedy/leap agreement with the NW
       oracle, leap pass count, penalty sums)
 
@@ -63,7 +63,8 @@ def _pipeline_shard(cfg: AlignConfig, axis, read_codes, read_len, ref_codes,
     nw_pen = nw_penalty(
         read_codes, read_len, ref_codes, ref_len, x=cfg.x, o=cfg.o, e=cfg.e
     )
-    g = greedy_align(read_codes, read_len, ref_codes, ref_len, cfg)
+    g = greedy_align(read_codes, read_len, ref_codes, ref_len, cfg,
+                     want_cigar=False)
     l = leap_align(read_codes, read_len, ref_codes, ref_len, cfg)
 
     local = jnp.stack(
@@ -100,53 +101,17 @@ def make_sharded_pipeline(mesh, cfg: AlignConfig):
     return jax.jit(fn)
 
 
-def make_sharded_greedy(mesh, cfg: AlignConfig, impl: str = "xla",
-                        want_cigar: bool = False, interpret: bool = False,
-                        pre_staged: bool = False):
+def make_sharded_greedy(mesh, cfg: AlignConfig, want_cigar: bool = False):
     """jit'd sharded greedy-only step: returns the greedy result dict with
     every leaf sharded on the batch axis (the pure-throughput path used by
-    the flagship benchmark).
-
-    impl: "xla" (portable lax kernel) or "pallas" (fused VMEM-resident
-    TPU kernel, asm_tpu.kernels.greedy_pallas — ~8x faster on chip).
-    want_cigar=False (pallas only) skips the (op, run) slot expansion and
-    returns compact packed step records instead.
-    interpret=True (pallas only) runs the kernel in Pallas interpret mode
-    so the exact shipped bench path is testable on the hermetic CPU mesh.
-    pre_staged (pallas only): True/"swar" = codes arrive position-major
-    (uint32[L//4, B] from greedy_pallas.stage_swar_t, batch on axis 1);
-    "planes" = position-major 2-bit planes (uint32[L//16, B] from
-    stage_planes_t — the production corpus layout, 4x denser, skips the
-    in-kernel pack). Both skip the device transpose.
+    the flagship benchmark). want_cigar=False returns cost and steps only.
     """
-    axis = mesh.axis_names[0]
-    b = P(axis)
-    if pre_staged == "planes_tiled":
-        c = P(axis)  # tile-major: batch on the leading (tile) axis
-    elif pre_staged:
-        c = P(None, axis)
-    else:
-        c = b
-
-    if impl == "pallas":
-        from asm_tpu.kernels.greedy_pallas import greedy_align_pallas
-
-        def shard_fn(read_codes, read_len, ref_codes, ref_len):
-            return greedy_align_pallas(
-                read_codes, read_len, ref_codes, ref_len, cfg,
-                want_cigar=want_cigar, interpret=interpret,
-                pre_staged=pre_staged,
-            )
-    else:
-        assert not pre_staged, "pre_staged requires impl='pallas'"
-
-        def shard_fn(read_codes, read_len, ref_codes, ref_len):
-            return greedy_align(read_codes, read_len, ref_codes, ref_len, cfg)
-
+    b = P(mesh.axis_names[0])
     fn = shard_map(
-        shard_fn,
+        lambda rc, rl, fc, fl: greedy_align(rc, rl, fc, fl, cfg,
+                                            want_cigar=want_cigar),
         mesh=mesh,
-        in_specs=(c, b, c, b),
+        in_specs=(b, b, b, b),
         out_specs=b,
     )
     return jax.jit(fn)

@@ -1,12 +1,12 @@
 """Difficulty-aware batch scheduling for lockstep kernels.
 
-The greedy Pallas kernel advances a whole tile of pairs in lockstep: its
-while_loop runs until the SLOWEST pair in the tile converges (the
-per-tile-max exit in asm_tpu.kernels.greedy_pallas). With randomly ordered
-corpora every tile contains a tail pair, so every tile pays close to the
-global worst-case step count. Ordering the corpus by a difficulty proxy
-groups pairs of similar step count into the same tile: easy tiles then
-exit in 2-3 iterations and only the few genuinely hard tiles run long —
+The greedy kernel advances a block of pairs in lockstep: its while_loop
+runs until the SLOWEST pair in the block converges (the per-block exit in
+asm_tpu.kernels.greedy). With randomly ordered corpora many blocks
+contain a tail pair and pay close to the worst-case step count. Ordering
+the corpus by a difficulty proxy groups pairs of similar step count into
+the same block: easy blocks then exit in 2-3 iterations and only the few
+genuinely hard blocks run long —
 the lockstep analogue of sequence-length bucketing in batched inference.
 
 This is a scheduling concern, not an algorithm change: per-pair results

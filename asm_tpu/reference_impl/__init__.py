@@ -1,6 +1,6 @@
 """Faithful scalar (NumPy) emulators of the reference C++ kernels.
 
-These are the conformance oracles for the batched TPU kernels: each module
+These are the conformance oracles for the batched kernels: each module
 mirrors the corresponding C++ algorithm step by step (citations inline), with
 one deliberate, documented deviation — positions past a string's true end are
 deterministic mismatches instead of reads of stale buffer memory

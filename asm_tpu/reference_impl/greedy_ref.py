@@ -163,11 +163,15 @@ def greedy_ref(
     max_len: int = 128,
     flip_threshold: int = 1,
     return_trace: bool = False,
+    max_steps: int | None = None,
 ):
     """Run the greedy hurdle-matrix alignment; returns (cost, cigar).
 
     With return_trace=True also returns a list of per-step
-    (chosen_lane, new_column) for kernel debugging.
+    (chosen_lane, new_column) for kernel debugging. max_steps bounds the
+    highway steps like the kernel's AlignConfig.max_steps (the walk then
+    ends with the final leap from wherever it stopped); the reference
+    itself has no bound (None).
     """
     L = max_len
     m = min(len(s1), L)
@@ -302,7 +306,7 @@ def greedy_ref(
 
     best_sel = 0
     # cf. run(), hurdle_matrix.h:568-597
-    while True:
+    while max_steps is None or len(trace) < max_steps:
         if not update_highway_list():
             is_first_step = False
             break

@@ -1,7 +1,7 @@
 """Scalar emulator of the reference SHD pre-filter (LEAP_SIMD/SHD.cpp).
 
 Mirrors the compiled code mechanically on Python big-ints so the batched
-TPU kernel (asm_tpu.kernels.shd) has a conformance oracle, exactly like
+batched kernel (asm_tpu.kernels.shd) has a conformance oracle, exactly like
 greedy_ref/leap_ref anchor the other kernels. Three entry points:
 
   flip_false_zero      — SHD.cpp:21-88   (MASK_SRS shuffle-LUT cascade)

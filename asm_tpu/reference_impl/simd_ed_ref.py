@@ -30,7 +30,7 @@ sequence, exactly like the C++ object in the reference driver loop.
 `run_pair` also reports whether any leak influenced this pair's output
 (computed by replaying the pair on a fresh emulator), so batched-kernel
 tests can restrict bit-exact assertions to leak-free pairs — the batched
-TPU kernels use fresh per-pair state by design (see kernels/leap.py).
+The batched kernels use fresh per-pair state by design (see kernels/leap.py).
 
 Input conventions mirror LEAP_SIMD/main.cpp:137-196: per pair,
 length = len(read) (truncated at 256); the ref is strncpy'd to that

@@ -4,7 +4,6 @@ from asm_tpu.utils.profiling import (
     Timer,
     KernelStats,
     trace_to,
-    force_completion,
 )
 from asm_tpu.utils.corpus_cache import save_corpus, load_corpus
 
@@ -12,7 +11,6 @@ __all__ = [
     "Timer",
     "KernelStats",
     "trace_to",
-    "force_completion",
     "save_corpus",
     "load_corpus",
 ]

@@ -13,7 +13,7 @@ native library is unavailable — results are identical, only slower.
 
 Role analogue in the reference: none (it streams pairs one at a time,
 benchmark_utils.h:373); this is the data-loading/allocator layer a
-TPU-scale batch pipeline needs.
+large-batch pipeline needs.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 // asm_tpu native runtime: corpus IO + 2-bit packing + WFA-style generator.
 //
-// TPU-native equivalent of the reference's host-side data layer:
+// The batched framework's equivalent of the reference's host-side data layer:
 //   * pair-file reader  (">READ\n<REF\n", benchmark_utils.h:325-352)
 //   * FASTA / FASTQ readers (mapper/main.cpp:32-41 via SeqAn3 — here a
 //     dependency-free parser)
 //   * ASCII -> 2-bit code packing (bit_convert.cpp:248-369 does this with
-//     a 7-stage SSE shuffle transpose; a TPU host only needs to emit the
+//     a 7-stage SSE shuffle transpose; a device host only needs to emit the
 //     framework's int8 code layout, which the compiler auto-vectorizes)
 //   * seeded dataset generator (benchmark_dataset.h:61-254) — C++ speed
 //     for multi-million-pair corpora with the same sequential error

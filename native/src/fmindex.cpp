@@ -1,13 +1,13 @@
 // FM-index: build / exact backward search / locate / save / load.
 //
-// TPU-native replacement for the reference mapper's SeqAn3 bi_fm_index
+// Replacement for the reference mapper's SeqAn3 bi_fm_index
 // dependency (GASMA/mapper/indexer.cpp:23-93 build+cereal-serialize,
 // GASMA/mapper/main.cpp:50-77 load+search): a dependency-free C++ FM-index
 // over the 2-bit DNA alphabet, exposed via a C ABI for ctypes.
 //
 // The division of labor mirrors the reference: the index only produces
 // CANDIDATE positions (exact seed hits); per-candidate scoring/alignment
-// runs batched on the TPU (greedy kernel), like the reference rescoring
+// runs batched on the device (greedy kernel), like the reference rescoring
 // each hit with hurdle_matrix (main.cpp:82-86). Approximate search is done
 // pigeonhole-style by the Python driver (split a read with <= e errors
 // into e+1 seeds; some seed is exact), so the index itself needs only
@@ -194,7 +194,7 @@ int64_t asm_fm_locate(void* h, int64_t lo, int64_t hi, int64_t cap,
 // max_hits_per_seed) are SAMPLED evenly across the range rather than
 // skipped — a true site inside a repeat region stays represented (the
 // reference's SeqAn3 search enumerates every hit, mapper/main.cpp:67-77;
-// sampling + batched TPU rescoring is the scalable middle ground).
+// sampling + batched device rescoring is the scalable middle ground).
 // Outputs: out_starts [n_reads * max_cands], out_counts [n_reads].
 int64_t asm_fm_candidates(void* h, const int8_t* reads, const int32_t* lens,
                           int64_t n_reads, int32_t stride,

@@ -15,7 +15,7 @@
 //
 // Reference scope note: the reference has no analogue — it streams one
 // pair at a time from a file (GASMA/benchmark/benchmark_utils.h:373) and
-// never materializes multi-GB corpora. This is the TPU-framework
+// never materializes multi-GB corpora. This is the framework's
 // equivalent of its data-loading layer, sized for 10M-pair batches.
 
 #include <atomic>
@@ -185,177 +185,6 @@ void asm_apply_perm_rows(const void* src, const int64_t* perm, void* dst,
     parallel_for(B, clamp_threads(nthreads), [=](int64_t lo, int64_t hi) {
         for (int64_t i = lo; i < hi; i++)
             memcpy(d + i * rowbytes, s + perm[i] * rowbytes, (size_t)rowbytes);
-    });
-}
-
-// Position-major SWAR staging transpose: src uint32[B, W] row-major ->
-// dst uint32[W, B] (dst[w*B + i] = src[i*W + w]), in parallel over row
-// blocks with cache tiling. The layout greedy/LEAP pallas kernels
-// consume pre-staged (kernels/greedy_pallas.py stage_swar_t).
-void asm_stage_swar_t(const uint32_t* src, int64_t B, int32_t W,
-                      uint32_t* dst, int32_t nthreads) {
-    constexpr int64_t kRows = 512;  // tile: 512 rows x W words
-    parallel_for((B + kRows - 1) / kRows, clamp_threads(nthreads),
-                 [=](int64_t blo, int64_t bhi) {
-        for (int64_t blk = blo; blk < bhi; blk++) {
-            int64_t i0 = blk * kRows;
-            int64_t i1 = i0 + kRows < B ? i0 + kRows : B;
-            for (int32_t w = 0; w < W; w++) {
-                uint32_t* d = dst + (int64_t)w * B;
-                for (int64_t i = i0; i < i1; i++) d[i] = src[i * W + w];
-            }
-        }
-    });
-}
-
-// Position-major 2-bit-plane staging: src uint32[B, 8*W] SWAR code words
-// (byte j = code of position 4*word+j) -> dst uint32[2*W, B] where
-// dst[w*B + i] is plane0 (code bit 0) of pair i's positions 32w..32w+31
-// and dst[(W+w)*B + i] is plane1 (code bit 1) — bit p of a plane word =
-// the code bit of position 32w+p, the little-endian plane order the
-// pallas kernels' in-kernel pack2 produces (kernels/greedy_pallas.py).
-// 4x smaller than the SWAR layout: 2 bits per position instead of a
-// byte, which quarters both the host->device upload and the kernels'
-// HBM input reads. The per-byte bit gathers use the same carry-free
-// 0x01020408 multiply compaction as the kernels (nothing else reaches
-// bits 24..31, so the four byte-bits land contiguously at 24..27).
-// `perm` (optional, may be null): output pair i is packed from source
-// row perm[i] — fusing a batch permutation (e.g. the difficulty sort)
-// into staging, so the multi-GB permuted copy of the raw corpus is
-// never materialized (the gather and the pack read each byte once).
-void asm_stage_planes_t(const uint32_t* src, const int64_t* perm,
-                        int64_t B, int32_t W, uint32_t* dst,
-                        int32_t nthreads) {
-    constexpr int64_t kRows = 512;
-    const int32_t W4 = 8 * W;
-    parallel_for((B + kRows - 1) / kRows, clamp_threads(nthreads),
-                 [=](int64_t blo, int64_t bhi) {
-        for (int64_t blk = blo; blk < bhi; blk++) {
-            int64_t i0 = blk * kRows;
-            int64_t i1 = i0 + kRows < B ? i0 + kRows : B;
-            for (int32_t w = 0; w < W; w++) {
-                uint32_t* d0 = dst + (int64_t)w * B;
-                uint32_t* d1 = dst + (int64_t)(W + w) * B;
-                for (int64_t i = i0; i < i1; i++) {
-                    int64_t r = perm ? perm[i] : i;
-                    const uint32_t* s = src + r * W4 + 8 * w;
-                    uint32_t a0 = 0, a1 = 0;
-                    for (int jj = 0; jj < 8; jj++) {
-                        uint32_t v = s[jj];
-                        a0 |= (((v & 0x01010101u) * 0x01020408u) >> 24)
-                              << (4 * jj);
-                        a1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u)
-                               >> 24) << (4 * jj);
-                    }
-                    d0[i] = a0;
-                    d1[i] = a1;
-                }
-            }
-        }
-    });
-}
-
-// Tile-major variant of asm_stage_planes_t: output [NBT, 2W, TILE] —
-// each kernel grid step's whole input block is one CONTIGUOUS 2W*TILE*4
-// byte range (the position-major [2W, B] layout hands Mosaic 2W strided
-// rows per block; measured 5x slower input streaming on the v5e).
-void asm_stage_planes_tiled_t(const uint32_t* src, const int64_t* perm,
-                              int64_t B, int32_t W, int32_t tile,
-                              uint32_t* dst, int32_t nthreads) {
-    const int32_t W4 = 8 * W;
-    const int64_t rows = 2 * (int64_t)W;
-    parallel_for((B + tile - 1) / tile, clamp_threads(nthreads),
-                 [=](int64_t tlo, int64_t thi) {
-        for (int64_t t = tlo; t < thi; t++) {
-            int64_t i0 = t * tile;
-            int64_t i1 = i0 + tile < B ? i0 + tile : B;
-            uint32_t* base = dst + t * rows * tile;
-            for (int64_t i = i0; i < i1; i++) {
-                int64_t r = perm ? perm[i] : i;
-                const uint32_t* s = src + r * W4;
-                for (int32_t w = 0; w < W; w++) {
-                    uint32_t a0 = 0, a1 = 0;
-                    for (int jj = 0; jj < 8; jj++) {
-                        uint32_t v = s[8 * w + jj];
-                        a0 |= (((v & 0x01010101u) * 0x01020408u) >> 24)
-                              << (4 * jj);
-                        a1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u)
-                               >> 24) << (4 * jj);
-                    }
-                    base[(int64_t)w * tile + (i - i0)] = a0;
-                    base[((int64_t)W + w) * tile + (i - i0)] = a1;
-                }
-            }
-        }
-    });
-}
-
-// Stage the greedy hurdle LANE ROWS position-major: for each output pair
-// column i (optionally permuted), compute the 2k+1 per-lane hurdle rows
-// exactly as greedy_pallas builds them in-kernel (2-bit planes, funnel
-// shift of one side by |lane|, XOR/OR, closed-form length-validity OR) —
-// dst row (lane+k)*W + w holds word w of that lane. Trades ~40% of the
-// kernel's per-tile build ops for streamed HBM input (112 B/pair at
-// k=3, L=128); staging is corpus prep, outside the timed region.
-void asm_stage_lanes_t(const uint32_t* rsrc, const uint32_t* fsrc,
-                       const int32_t* rlen, const int32_t* flen,
-                       const int64_t* perm, int64_t B, int32_t W,
-                       int32_t k, uint32_t* dst, int32_t nthreads) {
-    constexpr int64_t kRows = 512;
-    const int32_t W4 = 8 * W;
-    const int32_t NL = 2 * k + 1;
-    const int64_t L = 32 * (int64_t)W;
-    parallel_for((B + kRows - 1) / kRows, clamp_threads(nthreads),
-                 [=](int64_t blo, int64_t bhi) {
-        std::vector<uint32_t> a0(W), a1(W), b0(W), b1(W);
-        auto mask_ge = [](int64_t c, int32_t w) -> uint32_t {
-            int64_t low = c - 32 * (int64_t)w;
-            if (low <= 0) return 0xFFFFFFFFu;
-            if (low >= 32) return 0u;
-            return 0xFFFFFFFFu << low;
-        };
-        auto pack2 = [&](const uint32_t* s, uint32_t* p0, uint32_t* p1) {
-            for (int32_t w = 0; w < W; w++) {
-                uint32_t x0 = 0, x1 = 0;
-                for (int jj = 0; jj < 8; jj++) {
-                    uint32_t v = s[8 * w + jj];
-                    x0 |= (((v & 0x01010101u) * 0x01020408u) >> 24)
-                          << (4 * jj);
-                    x1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u) >> 24)
-                          << (4 * jj);
-                }
-                p0[w] = x0;
-                p1[w] = x1;
-            }
-        };
-        for (int64_t blk = blo; blk < bhi; blk++) {
-            int64_t i0 = blk * kRows;
-            int64_t i1 = i0 + kRows < B ? i0 + kRows : B;
-            for (int64_t i = i0; i < i1; i++) {
-                int64_t r = perm ? perm[i] : i;
-                pack2(rsrc + r * W4, a0.data(), a1.data());
-                pack2(fsrc + r * W4, b0.data(), b1.data());
-                int64_t m = rlen[r] < L ? rlen[r] : L;
-                int64_t n = flen[r] < L ? flen[r] : L;
-                for (int32_t li = 0; li < NL; li++) {
-                    int32_t lane = li - k;
-                    int32_t a_off = lane < 0 ? -lane : 0;
-                    int32_t b_off = lane > 0 ? lane : 0;
-                    for (int32_t w = 0; w < W; w++) {
-                        auto fun = [&](const uint32_t* p, int32_t s) {
-                            if (s == 0) return p[w];
-                            uint32_t hi = (w + 1 < W) ? p[w + 1] : 0u;
-                            return (p[w] >> s) | (hi << (32 - s));
-                        };
-                        uint32_t row =
-                            (fun(a0.data(), a_off) ^ fun(b0.data(), b_off))
-                            | (fun(a1.data(), a_off) ^ fun(b1.data(), b_off))
-                            | mask_ge(m - a_off, w) | mask_ge(n - b_off, w);
-                        dst[((int64_t)li * W + w) * B + i] = row;
-                    }
-                }
-            }
-        }
     });
 }
 

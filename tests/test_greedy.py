@@ -1,4 +1,4 @@
-"""Greedy kernel conformance: batched TPU kernel vs the scalar emulator
+"""Greedy kernel conformance: batched kernel vs the scalar emulator
 (asm_tpu.reference_impl.greedy_ref, itself a step-by-step mirror of
 GASMA/hurdle_matrix.h)."""
 

@@ -1,4 +1,4 @@
-"""LEAP kernel conformance: batched TPU kernel vs the scalar emulator
+"""LEAP kernel conformance: batched kernel vs the scalar emulator
 (asm_tpu.reference_impl.leap_ref, a mirror of LEAP_SIMD/LV_BAG.cpp)."""
 
 import numpy as np

@@ -55,52 +55,39 @@ def test_sharded_pipeline_matches_single_device(corpus):
     assert stats.greedy_cost_sum >= stats.nw_penalty_sum
 
 
-def test_sharded_greedy_pallas_matches_xla(corpus):
-    """The EXACT path bench.py times — make_sharded_greedy(impl='pallas',
-    want_cigar=False) under shard_map — against the sharded XLA kernel,
-    on the hermetic 8-device CPU mesh (pallas in interpret mode)."""
-    cfg = AlignConfig(k=3, max_steps=24)
-    mesh = make_mesh()
-    args = shard_batch(mesh, *corpus)
-    out_p = make_sharded_greedy(
-        mesh, cfg, impl="pallas", want_cigar=False, interpret=True
-    )(*args)
-    out_x = make_sharded_greedy(mesh, cfg, impl="xla")(*args)
-    np.testing.assert_array_equal(
-        np.asarray(out_p["cost"]), np.asarray(out_x["cost"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["steps"]), np.asarray(out_x["steps"])
-    )
-
-
-def test_sharded_greedy_pallas_pre_staged_matches_xla(corpus):
-    """bench.py's production path — pre-staged position-major corpus,
-    make_sharded_greedy(impl='pallas', pre_staged=True) — equals the
-    sharded XLA kernel on the hermetic 8-device CPU mesh."""
-    from asm_tpu.kernels.greedy_pallas import stage_swar_t
-    from asm_tpu.parallel import shard_on_axis
+def test_sharded_greedy_matches_emulator(corpus):
+    """bench.py's step — make_sharded_greedy (cost and steps only) under
+    shard_map on the 8-device mesh — per pair equal to the emulator."""
+    from asm_tpu.encoding import decode_string
+    from asm_tpu.reference_impl.greedy_ref import greedy_ref
 
     cfg = AlignConfig(k=3, max_steps=24)
     mesh = make_mesh()
+    out = make_sharded_greedy(mesh, cfg)(*shard_batch(mesh, *corpus))
+    assert set(out) == {"cost", "steps"}
     rc, rl, fc, fl = corpus
-    rl_d, fl_d = shard_batch(mesh, rl, fl)
-    out_p = make_sharded_greedy(
-        mesh, cfg, impl="pallas", want_cigar=False, interpret=True,
-        pre_staged=True,
-    )(
-        shard_on_axis(mesh, stage_swar_t(rc), 1), rl_d,
-        shard_on_axis(mesh, stage_swar_t(fc), 1), fl_d,
-    )
-    out_x = make_sharded_greedy(mesh, cfg, impl="xla")(
-        *shard_batch(mesh, *corpus)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["cost"]), np.asarray(out_x["cost"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["steps"]), np.asarray(out_x["steps"])
-    )
+    for i in range(rc.shape[0]):
+        cost, _, trace = greedy_ref(
+            decode_string(rc[i], int(rl[i])), decode_string(fc[i], int(fl[i])),
+            k=3, max_steps=24, return_trace=True)
+        assert int(np.asarray(out["cost"])[i]) == cost, i
+        assert int(np.asarray(out["steps"])[i]) == len(trace), i
+
+
+def test_sharded_greedy_cigar_matches_unsharded(corpus):
+    """want_cigar=True under shard_map: every CIGAR slot equals the
+    unsharded kernel's."""
+    import jax.numpy as jnp
+    from asm_tpu.kernels.greedy import greedy_align
+
+    cfg = AlignConfig(k=3, max_steps=24)
+    mesh = make_mesh()
+    out = make_sharded_greedy(mesh, cfg, want_cigar=True)(
+        *shard_batch(mesh, *corpus))
+    ref = greedy_align(*map(jnp.asarray, corpus), cfg)
+    for key in ("cost", "steps", "cigar_ops", "cigar_runs", "cigar_count"):
+        np.testing.assert_array_equal(np.asarray(out[key]),
+                                      np.asarray(ref[key]), err_msg=key)
 
 
 def test_sharded_greedy_matches_plain(corpus):
@@ -110,7 +97,8 @@ def test_sharded_greedy_matches_plain(corpus):
 
     cfg = AlignConfig(k=3)
     mesh = make_mesh()
-    out_sharded = make_sharded_greedy(mesh, cfg)(*shard_batch(mesh, *corpus))
+    out_sharded = make_sharded_greedy(mesh, cfg, want_cigar=True)(
+        *shard_batch(mesh, *corpus))
     out_plain = jax.jit(functools.partial(greedy_align, cfg=cfg))(
         *map(jnp.asarray, corpus)
     )
@@ -123,94 +111,45 @@ def test_sharded_greedy_matches_plain(corpus):
     )
 
 
-def test_sharded_greedy_pallas_planes_matches_xla(corpus):
-    """bench.py's production path — pre-staged 2-bit-plane corpus,
-    make_sharded_greedy(impl='pallas', pre_staged='planes') — equals the
-    sharded XLA kernel on the hermetic 8-device CPU mesh."""
-    from asm_tpu.kernels.greedy_pallas import stage_planes_t
-    from asm_tpu.parallel import shard_on_axis
+def test_sharded_greedy_shards_not_a_block_multiple():
+    """8 shards of 23 pairs: every shard pads to the kernel block on its
+    own, and the padding changes no real pair."""
+    import jax.numpy as jnp
+    from asm_tpu.kernels.greedy import greedy_align
 
+    corpus = generate_dataset_arrays(8 * 23, 90, 0.12, seed=21)
     cfg = AlignConfig(k=3, max_steps=24)
     mesh = make_mesh()
-    rc, rl, fc, fl = corpus
-    rl_d, fl_d = shard_batch(mesh, rl, fl)
-    out_p = make_sharded_greedy(
-        mesh, cfg, impl="pallas", want_cigar=False, interpret=True,
-        pre_staged="planes",
-    )(
-        shard_on_axis(mesh, stage_planes_t(rc), 1), rl_d,
-        shard_on_axis(mesh, stage_planes_t(fc), 1), fl_d,
-    )
-    out_x = make_sharded_greedy(mesh, cfg, impl="xla")(
-        *shard_batch(mesh, *corpus)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["cost"]), np.asarray(out_x["cost"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["steps"]), np.asarray(out_x["steps"])
-    )
+    out = make_sharded_greedy(mesh, cfg)(*shard_batch(mesh, *corpus))
+    ref = greedy_align(*map(jnp.asarray, corpus), cfg, want_cigar=False)
+    np.testing.assert_array_equal(np.asarray(out["cost"]),
+                                  np.asarray(ref["cost"]))
 
 
-def test_sharded_greedy_pallas_lanes_matches_xla(corpus):
-    """bench.py's default production path — pre-staged LANE ROWS,
-    make_sharded_greedy(impl='pallas', pre_staged='lanes') — equals the
-    sharded XLA kernel on the hermetic 8-device CPU mesh."""
-    from asm_tpu.kernels.greedy_pallas import stage_lanes_t
-    from asm_tpu.parallel import shard_on_axis
+def test_dryrun_multichip_8():
+    """The driver entry's multi-device dry run: sharded == one device per
+    pair on the 8-device CPU mesh."""
+    import os
+    import sys
 
-    cfg = AlignConfig(k=3, max_steps=24)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from __graft_entry__ import dryrun_multichip
+
+    dryrun_multichip(8)
+
+
+def test_sharded_pipeline_stats_match_per_pair(corpus):
+    """The psum'd statistics equal the same sums over the per-pair
+    outputs."""
+    cfg = AlignConfig(k=3)
     mesh = make_mesh()
-    rc, rl, fc, fl = corpus
-    rl_d, fl_d = shard_batch(mesh, rl, fl)
-    lanes = stage_lanes_t(rc, rl, fc, fl, cfg.k)
-    H = (lanes.shape[0] + 1) // 2
-    out_p = make_sharded_greedy(
-        mesh, cfg, impl="pallas", want_cigar=False, interpret=True,
-        pre_staged="lanes",
-    )(
-        shard_on_axis(mesh, np.ascontiguousarray(lanes[:H]), 1), rl_d,
-        shard_on_axis(mesh, np.ascontiguousarray(lanes[H:]), 1), fl_d,
-    )
-    out_x = make_sharded_greedy(mesh, cfg, impl="xla")(
-        *shard_batch(mesh, *corpus)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["cost"]), np.asarray(out_x["cost"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["steps"]), np.asarray(out_x["steps"])
-    )
+    nw, g, l, s = (np.asarray(a) for a in make_sharded_pipeline(mesh, cfg)(
+        *shard_batch(mesh, *corpus)))
+    from asm_tpu.kernels.leap import leap_align
+    import jax.numpy as jnp
 
-
-def test_sharded_greedy_pallas_planes_tiled_matches_xla(corpus):
-    """Tile-major planes (pre_staged='planes_tiled', the fastest-streaming
-    input layout) under shard_map == the sharded XLA kernel."""
-    from asm_tpu.kernels.greedy_pallas import stage_planes_tiled_t
-    from asm_tpu.parallel import shard_on_axis
-
-    cfg = AlignConfig(k=3, max_steps=24)
-    mesh = make_mesh()
-    rc, rl, fc, fl = corpus
-    # pad the batch to mesh.size tiles so each shard is whole tiles
-    from asm_tpu.kernels.greedy_pallas import _TILE
-    reps = (mesh.size * _TILE + len(rl) - 1) // len(rl)
-    rc, rl, fc, fl = (np.concatenate([a] * reps)[: mesh.size * _TILE]
-                      for a in (rc, rl, fc, fl))
-    rl_d, fl_d = shard_batch(mesh, rl, fl)
-    out_p = make_sharded_greedy(
-        mesh, cfg, impl="pallas", want_cigar=False, interpret=True,
-        pre_staged="planes_tiled",
-    )(
-        shard_on_axis(mesh, stage_planes_tiled_t(rc), 0), rl_d,
-        shard_on_axis(mesh, stage_planes_tiled_t(fc), 0), fl_d,
-    )
-    out_x = make_sharded_greedy(mesh, cfg, impl="xla")(
-        *shard_batch(mesh, rc, rl, fc, fl)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["cost"]), np.asarray(out_x["cost"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out_p["steps"]), np.asarray(out_x["steps"])
-    )
+    passed = np.asarray(leap_align(*map(jnp.asarray, corpus), cfg)["passed"])
+    want = [len(nw), int((g == nw).sum()), int((l == nw).sum()),
+            int(passed.sum()), int(nw.sum()), int(g.sum()), int(l.sum())]
+    np.testing.assert_array_equal(s, want)

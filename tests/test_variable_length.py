@@ -4,9 +4,9 @@ The reference's real data has variable read lengths (its MASK_END mask
 machinery exists for exactly that, LEAP_SIMD/mask.cpp); here the
 generator draws per-pair lengths and every kernel handles them via the
 closed-form length masks. Asserted: generator envelope invariants, exact
-NW cascade equality, greedy pallas (int16 records incl. the
-reconstructed final-leap lane delta, which spans the widest on
-length-skewed pairs) == XLA CIGARs, and scalar-oracle agreement.
+greedy cost-only == CIGAR path (int16 records incl. the reconstructed
+final-leap lane delta, which spans the widest on length-skewed pairs),
+and scalar-oracle agreement.
 """
 
 import numpy as np
@@ -19,10 +19,9 @@ from asm_tpu.data.generator import (
 )
 from asm_tpu.encoding import decode_string
 from asm_tpu.kernels.greedy import greedy_align
-from asm_tpu.kernels.greedy_pallas import greedy_align_pallas
 from asm_tpu.kernels.nw import nw_penalty
-from asm_tpu.kernels.nw_band import nw_penalty_auto
 from asm_tpu.ops.cigar import batch_greedy_cigars
+from asm_tpu.reference_impl.nw_ref import nw_ref
 from asm_tpu.reference_impl.greedy_ref import greedy_ref
 from asm_tpu.reference_impl.leap_ref import leap_ref
 from asm_tpu.kernels.leap import leap_align
@@ -59,16 +58,12 @@ def test_kernels_on_variable_lengths():
     )
     a = list(map(jnp.asarray, (rc, rl, fc, fl)))
     pen = np.asarray(nw_penalty(*a))
-    np.testing.assert_array_equal(
-        np.asarray(nw_penalty_auto(*a, interpret=True)), pen
-    )
     cfg = AlignConfig(k=3)
     g = greedy_align(*a, cfg)
-    gp = greedy_align_pallas(*a, AlignConfig(k=3, max_steps=40),
-                             interpret=True)
+    g40 = greedy_align(*a, AlignConfig(k=3, max_steps=40))
     np.testing.assert_array_equal(np.asarray(g["cost"]),
-                                  np.asarray(gp["cost"]))
-    assert batch_greedy_cigars(g) == batch_greedy_cigars(gp)
+                                  np.asarray(g40["cost"]))
+    assert batch_greedy_cigars(g) == batch_greedy_cigars(g40)
     lout = leap_align(*a, cfg)
     lp = np.asarray(lout["penalty"])
     gc = np.asarray(g["cost"])
@@ -79,3 +74,5 @@ def test_kernels_on_variable_lengths():
         _, led, _ = leap_ref(s1, s2, k=3,
                              af_threshold=cfg.leap_af_threshold)
         assert led == lp[i], i
+        if i < 12:
+            assert nw_ref(s1, s2, traceback=False)[0] == pen[i], i
